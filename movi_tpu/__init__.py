@@ -1,10 +1,10 @@
-"""movi_tpu: a TPU-native pangenome full-text query engine.
+"""movi_tpu: a pangenome full-text query engine on JAX, run on GPUs.
 
 Implements the capabilities of Movi (the move data structure over the
 run-length BWT: PML/ZML/count/kmer/MEM queries and read classification),
-re-architected for TPU: the index is a structure-of-arrays resident in HBM
-and queries run as batched gather-scans over thousands of reads in lockstep
-under jax.jit / shard_map.
+re-architected for an accelerator: the index is a structure-of-arrays
+resident in device memory and queries run as batched gather-scans over
+thousands of reads in lockstep under jax.jit / shard_map.
 """
 
 __version__ = "0.1.0"

@@ -58,12 +58,19 @@ def error(msg: str):
     log_msg("ERROR", msg)
 
 
+# label -> (start, end) wall-clock seconds of the latest finished
+# section, for callers that report phase times (chip_smoke.py)
+SPANS: dict = {}
+
+
 @contextmanager
 def timing(label: str):
     """TIMING_MSG equivalent (commons.hpp:31-44): wall-clock a section."""
     t0 = time.time()
     yield
-    log_msg("TIMING", f"{label}: {time.time() - t0:.2f}s")
+    t1 = time.time()
+    SPANS[label] = (t0, t1)
+    log_msg("TIMING", f"{label}: {t1 - t0:.2f}s")
 
 
 class ProgressBar:

@@ -182,54 +182,59 @@ class AdvancedEngine(ScalarEngine):
         return self.initialize_backward_search(c), pos_on_r, 0
 
     # ---------------------------------------------------- bidirectional
+    def _row_tables(self):
+        """Per alphabet index a: rows[a][j] = rows held by runs < j with
+        character a (the '$' run counts in none), plus each index's
+        complement character.  Built once; turns the reference's walk
+        over an interval's runs into two lookups per character."""
+        if getattr(self, "_rows", None) is None:
+            ix = self.ix
+            if not np.array_equal(np.diff(ix.all_p), ix.n_arr):
+                raise ValueError("all_p is not the prefix sum of n_arr")
+            n = ix.n_arr.astype(np.int64)
+            n[ix.end_bwt_idx] = 0
+            rows = np.zeros((ix.sigma, ix.r + 1), np.int64)
+            for a in range(ix.sigma):
+                np.cumsum(np.where(ix.c_arr == a, n, 0), out=rows[a, 1:])
+            comp = [complement_char(int(ch)) for ch in ix.alphabet]
+            self._rows = (rows, comp)
+        return self._rows
+
+    def _advance(self, run: int, off: int, skip: int):
+        """(run, offset) moved down by `skip` BWT rows."""
+        all_p = self.ix.all_p
+        pos = int(all_p[run]) + off + skip
+        run = int(np.searchsorted(all_p, pos, side="right")) - 1
+        return run, pos - int(all_p[run])
+
     def extend_bidirectional(self, c: int, fw, rc):
         """move_structure_search.cpp:66-120.  Returns (ok, fw', rc')."""
         ix = self.ix
         c_comp = complement_char(c)
-        fw_before = fw
         new_fw = self.backward_search_step(c, *fw)
         if _is_empty(new_fw):
             return False, fw, rc
-        # count skipped rows: rows in fw_before whose complement(char) <
-        # c_comp ('$' rows always count)
+        # count skipped rows: rows in fw whose complement(char) < c_comp
+        # ('$' rows always count)
+        rs, os_, re, oe = fw
         skip = 0
-        rs, os_, re, oe = fw_before
-        run = rs
-        off = os_
-        while run <= re:
-            if run != ix.end_bwt_idx:
-                row_char = int(ix.alphabet[ix.c_arr[run]])
-                if complement_char(row_char) < c_comp:
-                    cnt = (int(ix.n_arr[run]) - off if run != re
-                           else oe - off + 1)
-                    skip += cnt
-            else:
+        if rs <= re:
+            rows, comp = self._row_tables()
+            e = ix.end_bwt_idx
+            for a in range(ix.sigma):
+                if comp[a] < c_comp:
+                    skip += int(rows[a, re] - rows[a, rs])
+                    if rs != e and ix.c_arr[rs] == a:
+                        skip -= os_
+                    if re != e and ix.c_arr[re] == a:
+                        skip += oe + 1
+            if rs <= e <= re:
                 skip += 1
-            run += 1
-            off = 0
-        # advance rc start by `skip` rows
-        rrs, ros, rre, roe = rc
-        while skip != 0:
-            rows_after = int(ix.n_arr[rrs]) - 1 - ros
-            if rows_after >= skip:
-                ros += skip
-                skip = 0
-            else:
-                rrs += 1
-                ros = 0
-                skip -= rows_after + 1
-        # rc end = rc start advanced by count(fw')-1
-        skip = self.interval_count(*new_fw) - 1
-        rre, roe = rrs, ros
-        while skip != 0:
-            rows_after = int(ix.n_arr[rre]) - 1 - roe
-            if rows_after >= skip:
-                roe += skip
-                skip = 0
-            else:
-                rre += 1
-                roe = 0
-                skip -= rows_after + 1
+        # advance rc start by `skip` rows; rc end = rc start advanced by
+        # count(fw')-1
+        rrs, ros = self._advance(rc[0], rc[1], skip)
+        rre, roe = self._advance(rrs, ros,
+                                 self.interval_count(*new_fw) - 1)
         return True, new_fw, (rrs, ros, rre, roe)
 
     def extend_left(self, c: int, bi: BiInterval) -> bool:
@@ -447,7 +452,7 @@ class AdvancedEngine(ScalarEngine):
         query_kmers_from_bidirectional (sequitur.cpp:14-255) semantics via
         a straightforward per-kmer backward search fallback (counts are
         identical; the bidirectional caching is a CPU optimization that
-        the batched TPU engine replaces with lane parallelism)."""
+        the batched device engine replaces with lane parallelism)."""
         m = len(seq)
         found = 0
         total = 0

@@ -1,6 +1,6 @@
 """Scalar reference query engine (NumPy, one read at a time).
 
-This is the ground truth the vectorized TPU engine must match bit-for-bit,
+This is the ground truth the vectorized device engines must match bit-for-bit,
 in the same way the reference's prefetch engine is tested against its
 `--no-prefetch` scalar path (tests/test_pml.cpp).
 

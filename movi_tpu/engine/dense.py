@@ -3,18 +3,17 @@
 The PML step (move_structure_query.cpp:234-361) is a deterministic function
 of (BWT position p, read character a): case 1 jumps to LF(p); case 2
 repositions via the threshold and then LFs; illegal characters just LF.
-Since XLA's TPU gather runs on the scalar core at ~7ns per 32-bit element,
-the fastest possible engine stores that function as a dense transition
-table:
+The engine with the fewest bytes per step stores that function as a
+dense transition table:
 
     dense[p, a] = next_p  |  (is_match << 31)
 
-so the whole per-base step is a single int32 gather plus two VPU ops.
+so the whole per-base step is a single int32 gather plus two
+elementwise ops.
 Slot sigma handles illegal characters (plain LF, match_len = 0).
 
-HBM cost is (sigma+1)*4 bytes per BWT position (~20 B/base for DNA) --
-the deliberate TPU trade of cheap HBM capacity for scarce random-access
-throughput.  For indexes too large for this table, the run-record engine
+Memory cost is (sigma+1)*4 bytes per BWT position (~20 B/base for
+DNA) -- a trade of device-memory capacity for random-access count.  For indexes too large for this table, the run-record engine
 (engine/fused.py) and the compact engine (engine/pml.py) cover the
 O(r)-space regime.
 

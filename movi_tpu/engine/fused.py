@@ -1,11 +1,10 @@
 """Fused single-gather PML engine (8-byte step records).
 
-The compact engine (engine/pml.py) spends ~20 HBM gathers per base per lane
-(row fields, reposition tables, log2(r) searchsorted steps).  On TPU, XLA
-gathers execute on the scalar core at a fixed rows/sec rate (measured
-~75 M rows/s from HBM, ~215-260 M rows/s when the table fits VMEM),
-independent of row width up to ~32 B -- so gather *count* is the wall.
-This engine gets the entire PML step down to ONE 8-byte gather:
+The compact engine (engine/pml.py) spends ~20 device-memory gathers per
+base per lane (row fields, reposition tables, log2(r) searchsorted
+steps).  Each is a dependent random access, so gather *count* sets the
+step's latency.  This engine gets the entire PML step down to ONE 8-byte
+gather:
 
   1. The index is built with NT-style splitting (`bound_ff=1`,
      index/structure.py:_nt_split, +~3% rows), so a fast-forward is at
@@ -32,13 +31,14 @@ This engine gets the entire PML step down to ONE 8-byte gather:
      repositioning (move_structure_query.cpp:277) but whose LF image is
      NOT in alphabet[0]'s C-block: its post-LF state is a single global
      (run, offset) constant P$, selected by the dollar_up/dollar_dn bits.
-  4. The scan body is: one gather, ~20 VPU ops, no data-dependent control
-     flow.  Bit-exact against ScalarEngine (tests/test_fused.py).
+  4. The scan body is: one gather, ~20 elementwise ops, no
+     data-dependent control flow.  Bit-exact against ScalarEngine (tests/test_fused.py).
 
 Memory: (sigma+1) * 8 B per row (40 B/row for DNA) vs 8 B/row for the
 reference's packed regular-thresholds layout (move_row_configs.hpp:34-51)
--- the TPU trade of HBM capacity for latency-critical access count.  A
-human-pangenome-scale index (r ~= 1e8) is 4 GB: resident on one v5e.
+-- a trade of device-memory capacity for latency-critical access
+count.  A human-pangenome-scale index (r ~= 1e8) is 4 GB: resident on
+one card.
 """
 
 from __future__ import annotations
@@ -259,7 +259,7 @@ def load_fused_index(path: str) -> FusedIndex:
 
 
 def fused_step_math(rec: jax.Array, state, p_dollar):
-    """The PML step VPU math on an already-gathered record [lanes, 2].
+    """The PML step math on an already-gathered record [lanes, 2].
     Shared by the single-chip gather step and the model-sharded psum step
     (parallel/sharded_index.py)."""
     idx, offset, ml = state
@@ -310,7 +310,7 @@ def fused_lf_math(rec: jax.Array, offset: jax.Array):
 
 
 def fused_pml_step(records: jax.Array, slots: int, p_dollar, state, a_eff):
-    """One PML base step: single 8-byte gather + VPU math."""
+    """One PML base step: single 8-byte gather + elementwise math."""
     idx, _, _ = state
     rec = jnp.take(records, idx * slots + a_eff, axis=0)  # [lanes, 2]
     return fused_step_math(rec, state, p_dollar)
@@ -321,11 +321,8 @@ def _fused_pml_scan(fi: FusedIndex, alphas_t: jax.Array):
     """alphas_t: [W, lanes], values in [0, sigma] (sigma = illegal).
     Returns ml [W, lanes].
 
-    alphas arrive as uint8 to quarter the host->device transfer, but the
-    scan must slice int32 rows: per-step slicing of a uint8 xs array is
-    ~3x slower end-to-end (uint8 tiles are (32, 128), so each row
-    extract is strided across 32-row tiles; measured 72 vs 233 Mbases/s),
-    so widen ONCE on device before the scan."""
+    alphas arrive as uint8 to quarter the host->device transfer, and are
+    widened ONCE on device so the scan slices int32 rows."""
     lanes = alphas_t.shape[1]
     slots = fi.sigma + 1
     alphas_t = alphas_t.astype(jnp.int32)

@@ -1,13 +1,11 @@
 """Paired-base PML engine: ONE 16-byte gather per TWO bases.
 
-The fused engine (engine/fused.py) is at the gather roofline: one
-8-byte record per base, ~90 M rows/s from HBM on one v5e chip
-(~90 Mbases/s).  The measured gather rate is per ROW, nearly
-independent of row width (84 M rows/s at 16 B) -- so the only way past
-the roofline is fewer gathers per base.  This engine precomputes the
-TWO-STEP transition for every (run, char1, char2) and packs it into one
-128-bit record, halving gathers per base: ~84 M rows/s * 2 =
-~170 Mbases/s projected.
+The fused engine (engine/fused.py) issues one dependent 8-byte record
+gather per base.  A random gather costs per ROW (a 32 B memory sector
+holds a 16 B record as well as an 8 B one), so the way to fewer
+dependent accesses is fewer gathers per base.  This engine precomputes
+the TWO-STEP transition for every (run, char1, char2) and packs it into
+one 128-bit record, halving gathers and scan steps per base.
 
 Why two steps compose into 128 bits: a single PML step branches on ONE
 offset comparison (LF fast-forward `fa+x >= fb`, or reposition

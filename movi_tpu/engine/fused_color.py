@@ -1,11 +1,11 @@
-"""Device Movi Color engine: multi-class classification on TPU.
+"""Device Movi Color engine: multi-class classification on the device.
 
 The reference's multi-classify runs inside the prefetch query loop: per
 base, after the LF step, the run's doc set votes for its documents and
 best/second-best are tracked online (read_processor.cpp:122-186;
 move_structure_query.cpp:373-470).
 
-TPU split of that work:
+Device/host split of that work:
 
   device   the fused PML scan emits each base's color id alongside the
            matching length.  The color ids of both possible post-LF

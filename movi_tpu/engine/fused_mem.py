@@ -154,7 +154,7 @@ def _mem_scan(mi: FusedMemIndex, alphas: jax.Array, state, L: int,
     lane_iota = jnp.arange(lanes)
 
     def char_at(p):
-        # one-hot on the VPU for typical widths (see _char_select)
+        # one-hot for typical widths (see _char_select)
         return _char_select(alphas, lane_iota, p)
 
     m = jnp.sum(alphas > -2, axis=1).astype(jnp.int32)  # per-lane length
@@ -344,7 +344,7 @@ def _all_mem_scan(mi: FusedMemIndex, alphas: jax.Array, ticks: int, state):
     m = jnp.sum(alphas > -2, axis=1).astype(jnp.int32)
 
     def char_at(p):
-        # one-hot on the VPU for typical widths (see _char_select)
+        # one-hot for typical widths (see _char_select)
         return _char_select(alphas, lane_iota, p)
 
     def init_pair(c0):

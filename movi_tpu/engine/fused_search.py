@@ -2,7 +2,7 @@
 
 The compact engines (engine/search.py) spend ~6+ gathers per step
 (char checks, nearest-run tables, two searchsorted LF resolutions).
-Since TPU gathers cost per-row (engine/fused.py), both interval ends
+Random gathers cost per row (engine/fused.py), so both interval ends
 fold into one 16-byte record gather each:
 
   rec_down[i, a] (for the interval start): the first run >= i whose
@@ -15,7 +15,7 @@ fold into one 16-byte record gather each:
   rec_up[i, a]: same for the last run <= i.
 
 A step = gather rec_down at (run_start, a), rec_up at (run_end, a),
-then pure VPU math (update_interval + 2x LF_move + fast_forward,
+then pure elementwise math (update_interval + 2x LF_move + fast_forward,
 move_structure_search.cpp:295-333).  Bit-exact vs ScalarEngine.
 """
 
@@ -44,8 +44,7 @@ class FusedSearchIndex:
     # both direction tables concatenated: rows [0, sigma*r) are the
     # "down" records (interval start), rows [sigma*r, 2*sigma*r) the
     # "up" records (interval end).  One table so a step's two record
-    # fetches issue as ONE gather of 2*lanes indices -- two dependent
-    # gathers serialize on the scalar core and cost ~2x (measured).
+    # fetches issue as ONE gather of 2*lanes indices instead of two.
     rec_all: jax.Array    # int32 [2*r*sigma, 4]
     # init_rec[a+1] = (first_run, first_offset, last_run, last_offset):
     # the four initialize_backward_search lookups as one gather
@@ -164,17 +163,15 @@ def _init_interval(si: FusedSearchIndex, a):
     (first_run, first_offset, last_run, last_offset) record.  Best for
     the tick machines (kmer/MEM) where init competes with record
     gathers; the per-step ZML path uses the one-hot variant below
-    (a per-step take on a tiny table still serializes on the
-    scalar core)."""
+    (no second gather per step)."""
     rec = jnp.take(si.init_rec, jnp.maximum(a, 0) + 1, axis=0)
     return rec[:, 0], rec[:, 1], rec[:, 2], rec[:, 3]
 
 
 def _onehot_rows(table, idx):
-    """Row-select from a TINY table as a one-hot compare-and-sum: pure
-    VPU work that fuses next to a step's HBM record gather, where a
-    `jnp.take` would issue a second gather serialized on the same
-    scalar core (measured +31% on paired ZML; docs/PERF.md)."""
+    """Row-select from a TINY table as a one-hot compare-and-sum:
+    elementwise work that fuses next to a step's record gather instead
+    of issuing a second gather."""
     n = table.shape[0]
     oh = idx[:, None] == jnp.arange(n, dtype=idx.dtype)[None, :]
     return jnp.sum(jnp.where(oh[:, :, None], table[None, :, :], 0),
@@ -189,10 +186,9 @@ def _init_interval_oh(si: FusedSearchIndex, a):
 
 
 # One-hot vs per-lane gather for tick-machine char fetches/emits: the
-# one-hot costs O(lanes*W) VPU work per tick, the gather one scalar-core
-# op.  One-hot wins when the tick is gather-bound (v1 machines, ~10
-# rows/tick); the v2 machines (~2 rows/tick) have scalar-core headroom,
-# so the threshold is tunable for measurement (MOVI_TPU_ONEHOT_W).
+# one-hot costs O(lanes*W) elementwise work per tick, the gather one
+# dependent load.  512 is an untuned default (no GPU sweep yet); the
+# width is overridable for that sweep (MOVI_TPU_ONEHOT_W).
 import os as _os
 
 _CHAR_ONEHOT_MAX_W = int(_os.environ.get("MOVI_TPU_ONEHOT_W", 512))
@@ -200,10 +196,10 @@ _CHAR_ONEHOT_MAX_W = int(_os.environ.get("MOVI_TPU_ONEHOT_W", 512))
 
 def _char_select(alphas, lane_iota, pos):
     """Per-lane read-character fetch inside a tick machine:
-    alphas[l, clip(pos[l])].  For typical read widths the one-hot
-    compare-and-sum stays on the VPU (free next to the tick's record
+    alphas[l, clip(pos[l])].  For typical read widths a one-hot
+    compare-and-sum (elementwise work fused next to the tick's record
     gather); very long reads fall back to the per-lane gather, whose
-    scalar-core cost does not grow with W."""
+    cost does not grow with W."""
     W = alphas.shape[1]
     p = jnp.clip(pos, 0, W - 1)
     if W <= _CHAR_ONEHOT_MAX_W:
@@ -214,10 +210,8 @@ def _char_select(alphas, lane_iota, pos):
 
 def _emit_add(buf, lane_iota, pos, val):
     """buf.at[lane, clip(pos[lane])].add(val[lane]) inside a tick
-    machine: a per-tick scatter is a scalar-core op just like the
-    gathers it rides with, so for typical widths emit as a one-hot
-    dense add on the VPU instead (+60% on the k-mer machine, measured);
-    very long reads keep the scatter."""
+    machine: for typical widths emitted as a one-hot dense add instead
+    of a per-tick scatter; very long reads keep the scatter."""
     W = buf.shape[1]
     p = jnp.clip(pos, 0, W - 1)
     if W <= _CHAR_ONEHOT_MAX_W:

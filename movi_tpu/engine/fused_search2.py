@@ -42,7 +42,7 @@ interval BEFORE the emptying step, and ZML restarts mid-pair): the
 step-1 micro-decode of both directions reconstructs it.  ZML's
 mid-pair restart is a pure function of (a1, a2) -- one backward-search
 step from the init interval of a1 -- precomputed into a sigma^2-entry
-VMEM table, NOT a second HBM gather.
+table selected one-hot, NOT a second record gather.
 
 Memory: 2 directions * sigma^2 * 24 B per run (768 B/run for DNA); the
 speed layout for count/ZML.  The 25-bit A fields allow r < 2^25 (the
@@ -79,12 +79,12 @@ class FusedSearch2Index:
     # both directions concatenated: rows [0, r*sigma^2) are the "down"
     # (interval start) records, rows [r*sigma^2, 2*r*sigma^2) the "up"
     # (interval end) records -- one table so a step's two fetches issue
-    # as ONE gather (two dependent gathers serialize, docs/PERF.md)
+    # as ONE gather of 2*lanes indices instead of two
     rec_all: jax.Array    # int32 [2*r*sigma^2, 6]
     # init_rec[a+1] = (first_run, first_offset, last_run, last_offset)
     init_rec: jax.Array   # int32 [sigma+1, 4]
     # restart_rec[a1*sigma+a2] = one bs step from init(a1) with a2:
-    # (rs, os, re, oe, empty) -- ZML's mid-pair restart (VMEM-tiny)
+    # (rs, os, re, oe, empty) -- ZML's mid-pair restart (tiny)
     restart_rec: jax.Array  # int32 [sigma^2, 5]
     all_p: jax.Array      # int32 [r+1] (final interval counts)
     alphamap_query: np.ndarray

@@ -530,7 +530,7 @@ def _reconstruct_ids(n_arr: np.ndarray, c_arr: np.ndarray,
 
     Blocked rows store ids as 24-bit deltas from per-block checkpoints
     and tally rows store no id at all (move_row_configs.hpp:54-136); on
-    the TPU the ids are always materialized as full arrays, so instead of
+    the device layout the ids are always materialized as full arrays, so instead of
     porting the checkpoint walks we recompute LF directly: the head of
     the k-th run of character a maps to position
     1 + (total of chars < a) + (rows of a in earlier a-runs), and the

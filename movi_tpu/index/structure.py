@@ -1,8 +1,8 @@
-"""The move structure index as structure-of-arrays (TPU device layout).
+"""The move structure index as structure-of-arrays (device layout).
 
 Re-architecture of the reference MoveStructure (include/move_structure.hpp:45-404,
 src/move_structure_build.cpp) as flat arrays instead of packed bitfield rows:
-the TPU query engine consumes plain int32/uint8 arrays via batched gathers, so
+the device query engines consume plain int32/uint8 arrays via batched gathers, so
 each per-mode C++ bit layout (include/move_row_configs.hpp) becomes an
 alternative *serialization*, not an in-memory format.
 
@@ -68,7 +68,7 @@ class MoveIndex:
     sampled_SA: Optional[np.ndarray] = None
     sa_sample_rate: int = 100
 
-    # ---- lazily computed query acceleration tables (TPU-side design) ----
+    # ---- lazily computed query acceleration tables (device-side design) ----
     _next_q: Optional[tuple] = None
     _next_s: Optional[tuple] = None
 
@@ -100,12 +100,12 @@ class MoveIndex:
         """next_up[j, i] / next_down[j, i]: nearest run with alphabet index j
         at-or-above / at-or-below run i (r if none), for PML repositioning.
 
-        This is the TPU-native replacement for the reference's scan-based
+        This is the device-side replacement for the reference's scan-based
         reposition_up/down (move_structure_query.cpp:188-232): a data-
         dependent-length scan becomes a single gather.  The constant mode
         (compute_nexts, move_structure_build.cpp:1080-1118) stores bounded
-        u16 deltas; we store absolute u32 run ids since HBM capacity is
-        cheaper than per-step gathers on TPU.
+        u16 deltas; we store absolute u32 run ids since device memory is
+        cheaper than per-step gathers.
 
         NOTE: repositioning compares `alphabet[rlbwt[idx].get_c()]`, and the
         '$' run's stored c is 0 -- so the '$' run *matches* alphabet[0] here
@@ -228,7 +228,7 @@ def _nt_split(bwt: np.ndarray, bounds: np.ndarray, end_char_total: int,
     bounded by max_span - 1 steps).
 
     Replaces the external r-permute tool (movi_launcher.cpp:221-227) and is
-    the key enabler of the TPU fused engine: a bounded fast-forward becomes
+    the key enabler of the fused engines: a bounded fast-forward becomes
     a fixed-size cum-length window resolved without data-dependent loops.
     """
     n = len(bwt)
@@ -269,7 +269,7 @@ def build_move_index(runs: BWTRuns, mode: str = MODE_REGULAR_THR,
     """Build the move index from original BWT runs + thresholds.
 
     bound_ff: if set, apply NT-style splitting so fast_forward never
-    exceeds bound_ff steps (required by the fused TPU engine).
+    exceeds bound_ff steps (required by the fused engines).
     """
     _, max_run_length, use_thresholds, split_thresholds = MODE_INFO[mode]
     bwt = runs.bwt

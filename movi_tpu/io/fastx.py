@@ -1,6 +1,6 @@
 """FASTA/FASTQ reading (replacement for the reference's kseq.h +
 batch_loader.cpp).  Host-side streaming feeds fixed-shape padded device
-batches for the TPU engine."""
+batches for the device engines."""
 
 from __future__ import annotations
 

@@ -5,7 +5,7 @@ The reference streams reads with a shared BatchLoader under omp critical
 FASTA/FASTQ and packs fixed-shape padded batches into a bounded queue;
 the consumer dispatches device work asynchronously (jax dispatch is
 async), so host parsing, host->device transfer, and device compute
-overlap -- the TPU analogue of double buffering.
+overlap -- the device analogue of double buffering.
 """
 
 from __future__ import annotations

@@ -6,7 +6,7 @@ counts collected into per-read vectors and written as .costs/.scans/
 363-371), plus aggregate histograms (ff_counts, run_lengths, repositions;
 move_structure.hpp:385-389).
 
-On TPU the per-base cost sampling of the reference (chrono every 200
+On the device the per-base cost sampling of the reference (chrono every 200
 iterations) is replaced by whole-batch step timing; use jax.profiler for
 kernel-level traces.
 """

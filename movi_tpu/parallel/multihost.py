@@ -16,6 +16,10 @@ Launch on each host:
 
     python -m movi_tpu.parallel.multihost --coordinator host0:1234 \
         --num-hosts 4 --host-id $ID --index idx --read reads.fastq --pml
+
+Several processes on one multi-card machine each take one card with
+--local-device $ID; without it every process would open (and reserve
+most of the memory of) every card.
 """
 
 from __future__ import annotations
@@ -25,12 +29,16 @@ import os
 from typing import Iterator, List, Optional, Tuple
 
 
-def initialize(coordinator: str, num_hosts: int, host_id: int):
+def initialize(coordinator: str, num_hosts: int, host_id: int,
+               local_device_ids: Optional[List[int]] = None):
+    """jax.distributed set-up.  local_device_ids pins this process to
+    those local cards (one card per process on a multi-card machine)."""
     import jax
 
     jax.distributed.initialize(coordinator_address=coordinator,
                                num_processes=num_hosts,
-                               process_id=host_id)
+                               process_id=host_id,
+                               local_device_ids=local_device_ids)
     return jax
 
 
@@ -327,15 +335,20 @@ def main(argv=None):
     p.add_argument("--bin-width", type=int, default=150)
     p.add_argument("--lanes", type=int, default=32768)
     p.add_argument("--out-prefix", default=None)
-    p.add_argument("--platform", default=None,
-                   help="force a jax platform (e.g. cpu for tests)")
+    p.add_argument("--platform", default=None, choices=["cpu", "gpu"],
+                   help="run on this JAX platform (cpu for tests)")
+    p.add_argument("--local-device", type=int, default=None,
+                   help="open only this local card (one process per "
+                        "card on a multi-card machine)")
     args = p.parse_args(argv)
 
     if args.platform:
         import jax
 
-        jax.config.update("jax_platforms", args.platform)
-    initialize(args.coordinator, args.num_hosts, args.host_id)
+        jax.config.update("jax_platforms",
+                          "cuda" if args.platform == "gpu" else args.platform)
+    initialize(args.coordinator, args.num_hosts, args.host_id,
+               None if args.local_device is None else [args.local_device])
     qt = ("multiclass" if args.multi_classify else
           "mems" if args.mems else "kmers" if args.kmers else
           "count" if args.count else "zml" if args.zml else "pml")

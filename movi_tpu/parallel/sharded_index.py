@@ -1,13 +1,15 @@
 """Index-sharded (capacity-scaling) PML engine.
 
-When the index exceeds one chip's HBM, the fused record table is sharded
-across a second mesh axis ('model'); read lanes stay data-parallel on
-'data'.  Each scan step, every model shard gathers with the lane's global
-key clamped into its local range, masks non-owned lanes to zero, and a
-psum over 'model' materializes the full record -- one local gather plus
-one small ICI all-reduce per step.  This is the "index sharded by run
-range with collective routing" design of SURVEY.md section 5 (the
-reference is single-node and has no equivalent).
+When the index exceeds one card's memory, the fused record table is
+sharded across a second mesh axis ('model'); read lanes stay
+data-parallel on 'data'.  Each scan step, every model shard gathers with
+the lane's global key clamped into its local range, masks non-owned
+lanes to zero, and a psum over 'model' materializes the full record --
+one local gather plus one small all-reduce per step, which XLA hands to
+NCCL over NVLink.  The cards of a host are joined all to all, so the
+mesh shape follows the algorithm, not a wiring topology.  This is the
+"index sharded by run range with collective routing" design of SURVEY.md
+section 5 (the reference is single-node and has no equivalent).
 """
 
 from __future__ import annotations
@@ -20,10 +22,7 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-try:
-    from jax import shard_map
-except ImportError:  # older jax
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from ..engine.fused import FusedIndex, fused_step_math
 

@@ -173,3 +173,69 @@ def test_kmer_counts_bidirectional(setup):
         want_total = sum(
             _overlap_count(hay, read[i : i + k]) for i in range(L - k + 1))
         assert (found, total) == (want_found, want_total), t
+
+
+def _walk_extend(eng, c, fw, rc):
+    """The reference's bidirectional extension as written
+    (move_structure_search.cpp:66-120): walk the interval's runs and the
+    rc rows one at a time."""
+    from movi_tpu.constants import complement_char
+
+    ix = eng.ix
+    c_comp = complement_char(c)
+    new_fw = eng.backward_search_step(c, *fw)
+    if _is_empty(new_fw):
+        return False, fw, rc
+    skip, (rs, os_, re, oe) = 0, fw
+    run, off = rs, os_
+    while run <= re:
+        if run != ix.end_bwt_idx:
+            if complement_char(int(ix.alphabet[ix.c_arr[run]])) < c_comp:
+                skip += (int(ix.n_arr[run]) - off if run != re
+                         else oe - off + 1)
+        else:
+            skip += 1
+        run, off = run + 1, 0
+
+    def advance(r_, o_, k):
+        while k:
+            after = int(ix.n_arr[r_]) - 1 - o_
+            if after >= k:
+                return r_, o_ + k
+            r_, o_, k = r_ + 1, 0, k - after - 1
+        return r_, o_
+
+    rrs, ros = advance(rc[0], rc[1], skip)
+    rre, roe = advance(rrs, ros, eng.interval_count(*new_fw) - 1)
+    return True, new_fw, (rrs, ros, rre, roe)
+
+
+@pytest.mark.parametrize("separators", [False, True])
+def test_bidirectional_extension_matches_run_walk(tmp_path, separators):
+    """The prefix-table extension (skip counts by lookup, rc moves by
+    all_p) equals the reference's run-by-run walk on every state a MEM
+    search visits, '$' and separator runs included."""
+    from movi_tpu import synth
+    from movi_tpu.build.prepare_ref import prepare_ref
+
+    haps = synth.pangenome(seed=11, base_len=3000, haplotypes=3)
+    fa = str(tmp_path / "p.fa")
+    synth.write_fasta(fa, [(f"h{i}", h) for i, h in enumerate(haps)])
+    ref = prepare_ref(fa, separators=separators)
+    ix = build_move_index(build_bwt_runs(ref.text), "regular-thresholds",
+                          separators=separators)
+    eng = AdvancedEngine(ix)
+    checked = 0
+    for read in synth.sample_reads(haps, 40, 60, seed=12, err_rate=0.05):
+        seq = read.tobytes()
+        for pos in range(0, len(seq), 7):
+            bi, _ = eng.init_bidirectional(seq, pos)
+            for j in range(pos - 1, -1, -1):
+                want = _walk_extend(eng, seq[j], bi.fw, bi.rc)
+                assert eng.extend_bidirectional(seq[j], bi.fw,
+                                                bi.rc) == want
+                checked += 1
+                if not want[0]:
+                    break
+                bi.fw, bi.rc = want[1], want[2]
+    assert checked > 1000

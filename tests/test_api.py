@@ -137,13 +137,13 @@ def test_engine_capacity_selection(monkeypatch):
     # 5M runs * 768 B = 3.8 GB <= 8 GB -> paired search
     assert select.use_paired_search(5_000_000, 4)
     assert not select.use_paired_search(12_000_000, 4)
-    # VMEM-resident one-step tables beat any HBM layout (measured 202
-    # vs 169 Mbases/s at r = 122k): small indexes keep the one-step
-    # engines unless forced
-    assert not select.use_paired_pml(122_000, 4)
-    assert select.use_paired_pml(122_000, 4, force=True)
-    assert not select.use_paired_search(39_000, 4)
-    assert not select.use_paired_color(80_000, 4, 100)
+    # small indexes take the paired layouts too: there is no separate
+    # cache-residency rule (docs/PERF.md), only capacity and forcing
+    assert select.use_paired_pml(122_000, 4)
+    assert not select.use_paired_pml(122_000, 4, force=False)
+    assert select.use_paired_search(39_000, 4)
+    assert select.use_paired_color(80_000, 4, 100)
+    assert not select.use_paired_color(80_000, 4, 0xFFFF)
     monkeypatch.setenv("MOVI_TPU_HBM_BYTES", str(1 << 30))
     assert not select.use_paired_pml(5_000_000, 4)
 

@@ -37,14 +37,12 @@ def test_cli_build_query_golden(tmp_path):
         want = f.read().splitlines()
     assert got == want
 
-    # this index's one-step table is VMEM-resident, so capacity
-    # auto-selection keeps the single-gather engine (measured faster
-    # than the paired layout below the VMEM boundary, engine/select.py)
+    # capacity auto-selection takes the paired layout, which fits
     r = _run(["query", "--index", idx,
               "--read", os.path.join(REF_DATA, "sample.fastq"),
               "--pml", "--stdout", "--platform", "cpu"])
     assert r.returncode == 0, r.stderr
-    assert "fused single-gather engine" in r.stderr
+    assert "paired-record engine" in r.stderr
     assert sorted(r.stdout.splitlines(), key=str.encode) == want
 
     # forcing the paired layout still hits the same golden

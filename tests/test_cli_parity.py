@@ -246,7 +246,11 @@ def test_native_fastx_reader(tmp_path):
 
     from movi_tpu.io.fastx import batches_from_file, iter_fastx, make_batches
 
-    fq = os.path.join(REF_DATA, "sample.fastq")
+    from movi_tpu import synth
+
+    fq = str(tmp_path / "sample.fastq")
+    reads = synth.sample_reads([synth.ACGT.repeat(50)], 40, 120, seed=5)
+    synth.write_fastq(fq, [f"read{i} comment" for i in range(40)], reads)
     fa = str(tmp_path / "multi.fa")
     with open(fa, "w") as f:
         f.write(">r1 comment\r\nACGT\r\nACGTAC\r\n>r2\nTTTT\n\n>r3 x\nGG\n")

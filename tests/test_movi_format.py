@@ -92,7 +92,7 @@ def test_movi_roundtrip_large(bwt_runs, sample_reads, tmp_path):
                                   "constant", "split"])
 def test_movi_roundtrip_blocked_tally(bwt_runs, tmp_path, mode):
     """Blocked/tally index.movi files read back with ids reconstructed in
-    full from (n, c) -- the TPU layout never uses delta/checkpoint ids."""
+    full from (n, c) -- the device layout never uses delta/checkpoint ids."""
     import numpy as np
 
     from movi_tpu.index.movi_format import read_movi, write_movi

@@ -283,3 +283,20 @@ def test_two_process_mems_and_kmers_merge(tmp_path):
         if int(name[1:]) % 2 == 0:
             a, b = frac.split("/")
             assert a == b and int(total) >= int(b)
+
+
+@pytest.mark.parametrize("ids", [None, [2]])
+def test_initialize_passes_local_device_ids(monkeypatch, ids):
+    """initialize pins a process to its own cards on a multi-card
+    machine (jax.distributed.initialize(local_device_ids=...))."""
+    import jax
+
+    from movi_tpu.parallel import multihost
+
+    seen = {}
+    monkeypatch.setattr(jax.distributed, "initialize",
+                        lambda **kw: seen.update(kw))
+    multihost.initialize("localhost:1234", 4, 2, local_device_ids=ids)
+    assert seen == {"coordinator_address": "localhost:1234",
+                    "num_processes": 4, "process_id": 2,
+                    "local_device_ids": ids}

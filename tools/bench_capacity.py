@@ -1,12 +1,13 @@
 #!/usr/bin/env python
 """Capacity-ladder measurement: replicated vs model-sharded PML on the
 virtual 8-device CPU mesh (the sharding testbed; jax.sharding semantics
-are identical on a TPU pod, only the interconnect differs).
+are identical across the cards of a GPU host, only the interconnect
+differs).  Times from this script are CPU times, not device times.
 
 Measures, on the SAME mesh and batch:
   - data-parallel replicated-index rate (parallel/mesh.py)
   - model-sharded record table rate (parallel/sharded_index.py), i.e.
-    the capacity mode for indexes exceeding one chip's HBM: one local
+    the capacity mode for indexes exceeding one card's memory: one local
     gather into the 1/M-size shard + one psum of the selected 8-byte
     record per step
 and verifies both bit-equal to the single-device fused engine.
